@@ -1,0 +1,29 @@
+"""SPRING core: the in-band profiling stream, in PyTorch.
+
+The port of :mod:`repro.core`: a profiling stream that flows alongside the
+data stream, splitting and merging in synchrony with the dataflow, with a
+statically predetermined label schema.
+"""
+from .stream import (
+    GUARD_ALGOS, INTEGRITY_METRIC, IntegrityReport, Label, PLACEHOLDER,
+    ProfileStream, placeholder_label, validate_policy,
+)
+from .tape import TapeSpec, concat_streams_and_rows, rows_to_stream
+from .codec import (
+    FLOAT_FORMATS, FixedPointCodec, verify_checksum, verify_crc32,
+    word_checksum, word_crc32,
+)
+from .collector import ProfileCollector, SignalAggregate
+from .policies import DagNode, ProfiledDag, RoutingPlan, plan_routing
+from . import metrics
+
+__all__ = [
+    "Label", "PLACEHOLDER", "ProfileStream", "placeholder_label", "validate_policy",
+    "GUARD_ALGOS", "INTEGRITY_METRIC", "IntegrityReport",
+    "TapeSpec", "concat_streams_and_rows", "rows_to_stream",
+    "FLOAT_FORMATS", "FixedPointCodec", "verify_checksum", "verify_crc32",
+    "word_checksum", "word_crc32",
+    "ProfileCollector", "SignalAggregate",
+    "DagNode", "ProfiledDag", "RoutingPlan", "plan_routing",
+    "metrics",
+]

@@ -1,0 +1,125 @@
+"""Host-side (PS-side) collection and aggregation of profile streams.
+
+The FPGA flow DMA-transfers the profile stream to the processing system and
+post-processes it against the predetermined label list.  Here the "PS side"
+is the training host: each step's decoded stream is folded into running
+aggregates (max — the paper's headline statistic for FIFO fullness — plus
+last/mean for convenience).  The port of :mod:`repro.core.collector`; its
+aggregates are numpy on the host, as there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from .stream import IntegrityReport, ProfileStream
+
+
+@dataclasses.dataclass
+class SignalAggregate:
+    max: np.ndarray
+    min: np.ndarray
+    last: np.ndarray
+    mean: np.ndarray
+    count: int
+
+
+class ProfileCollector:
+    """Folds per-step decoded streams into running per-signal aggregates."""
+
+    def __init__(self):
+        self._agg: Dict[str, SignalAggregate] = {}
+        self.steps = 0
+        self.integrity_failures = 0
+        self.quarantine_counts: Dict[str, int] = {}
+        self._last_integrity: Optional[IntegrityReport] = None
+
+    def attach_trace(self, store=None, *,
+                     capacities: Optional[Dict[str, int]] = None):
+        """Tap the ingest path into a trace store: needs the ``trace/``
+        slice of the port, which is not ported yet."""
+        raise NotImplementedError(
+            "attach_trace needs the trace/ slice of repro_torch, which is "
+            "not ported yet")
+
+    def ingest(self, stream: ProfileStream) -> Dict[str, np.ndarray]:
+        decoded = stream.decode()
+        self.ingest_decoded(decoded)
+        return decoded
+
+    def ingest_verified(
+        self, stream: ProfileStream
+    ) -> Tuple[Dict[str, np.ndarray], IntegrityReport]:
+        """Verified ingest: corrupted signals are quarantined, never folded.
+
+        Intact signals still land in the aggregates, so one flipped bit
+        poisons one signal for one step instead of the whole collection run.
+        """
+        decoded, report = stream.decode_verified()
+        self.ingest_decoded(decoded)
+        self._last_integrity = report
+        if not report.ok:
+            self.integrity_failures += 1
+            for name in report.quarantined:
+                self.quarantine_counts[name] = (
+                    self.quarantine_counts.get(name, 0) + 1)
+        return decoded, report
+
+    @property
+    def last_integrity(self) -> Optional[IntegrityReport]:
+        return self._last_integrity
+
+    def ingest_decoded(self, decoded: Dict[str, np.ndarray]) -> None:
+        self.steps += 1
+        for name, vals in decoded.items():
+            vals = np.asarray(vals, dtype=np.float64)
+            agg = self._agg.get(name)
+            if agg is None:
+                self._agg[name] = SignalAggregate(
+                    max=vals.copy(), min=vals.copy(), last=vals.copy(),
+                    mean=vals.copy(), count=1,
+                )
+            else:
+                n = agg.count + 1
+                agg.max = np.maximum(agg.max, vals)
+                agg.min = np.minimum(agg.min, vals)
+                agg.mean = agg.mean + (vals - agg.mean) / n
+                agg.last = vals
+                agg.count = n
+
+    @property
+    def signals(self) -> Dict[str, SignalAggregate]:
+        return dict(self._agg)
+
+    def summary(self, stat: str = "max") -> Dict[str, np.ndarray]:
+        return {k: getattr(v, stat) for k, v in self._agg.items()}
+
+    def report(self) -> str:
+        lines = [f"# profile report — {self.steps} step(s), {len(self._agg)} signal(s)"]
+        if self.integrity_failures:
+            lines.append(
+                f"# integrity: {self.integrity_failures} damaged stream(s); "
+                f"quarantines: {self.quarantine_counts}")
+        for name in sorted(self._agg):
+            a = self._agg[name]
+            mx = float(np.max(a.max))
+            mn = float(np.min(a.min))
+            lines.append(f"{name:60s} max={mx:12.4f} min={mn:12.4f} n={a.count}")
+        return "\n".join(lines)
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                k: {
+                    "max": np.asarray(v.max).tolist(),
+                    "min": np.asarray(v.min).tolist(),
+                    "mean": np.asarray(v.mean).tolist(),
+                    "count": v.count,
+                }
+                for k, v in self._agg.items()
+            },
+            indent=1,
+        )

@@ -1,0 +1,377 @@
+"""In-band profiling stream — the paper's core contribution, in PyTorch.
+
+The port of :mod:`repro.core.stream`.  SPRING threads a profiling stream
+*alongside* the data stream through a streaming dataflow graph (paper
+§II.A, Listing 1):
+
+  * each module reads the incoming profile stream and APPENDS its locally
+    collected metric words to the end;
+  * when the data stream SPLITS (clone), all profiling data follows the
+    first output branch; every other branch starts a fresh stream holding a
+    single PLACEHOLDER word;
+  * when data streams MERGE, the first input's profile words are written to
+    the output first, then the second's, and so on — deterministic order;
+  * the label schema is STATICALLY predetermined, so the host (PS side)
+    decodes the arriving flat word stream positionally.
+
+Here the stream is a plain object over a flat 1-D tensor of profile words
+(on the device the model runs on) plus a tuple of labels, the schema.
+Appending copies the words: the O(L²) re-read/re-write of the paper's
+§III.A, as in the reference's ``inline`` policy.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .codec import word_checksum, word_crc32
+
+# Placeholder word written into the fresh stream of a non-primary split
+# branch (paper: "the second output stream is initialized with a placeholder
+# value").
+PLACEHOLDER = -1.0
+
+# Metric tag of the guard words appended by ``append_guarded``: a
+# [sequence, checksum] pair per module record.
+INTEGRITY_METRIC = "integrity"
+
+_VALID_POLICIES = ("off", "inline", "shortcut")
+_NON_SIGNAL_METRICS = ("placeholder", INTEGRITY_METRIC)
+
+# Guard-word algorithms for ``append_guarded``.  ``xor24`` (default) emits a
+# [seq, fold] pair; ``crc32`` emits [seq, lo16, hi16].  The decoder tells
+# them apart by the guard label's size.
+GUARD_ALGOS = ("xor24", "crc32")
+
+
+@dataclasses.dataclass(frozen=True)
+class Label:
+    """Semantic tag for a contiguous run of words in the profile stream."""
+
+    name: str            # e.g. "block3/moe/expert_fullness"
+    metric: str          # e.g. "fifo_fullness", "act_rms", "placeholder"
+    size: int            # number of words this label occupies
+
+    def __post_init__(self):
+        if self.size < 1:
+            raise ValueError(f"Label {self.name!r}: size must be >= 1")
+
+
+def placeholder_label(branch: int) -> Label:
+    return Label(name=f"__placeholder_b{branch}__", metric="placeholder", size=1)
+
+
+class ProfileStream:
+    """A flat in-band stream of profile words with a static label schema."""
+
+    __slots__ = ("data", "schema")
+
+    def __init__(self, data: torch.Tensor, schema: Tuple[Label, ...]):
+        self.data = data
+        self.schema = tuple(schema)
+
+    # ------------------------------------------------------------------ #
+    # construction
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def create(cls, dtype=torch.float32, device=None) -> "ProfileStream":
+        """An empty stream (the profile input fed at the IP-core boundary)."""
+        return cls(torch.zeros((0,), dtype=dtype,
+                               device=resolve_device(device)), ())
+
+    @classmethod
+    def placeholder(cls, dtype=torch.float32, branch: int = 1,
+                    device=None) -> "ProfileStream":
+        """Fresh stream for a non-primary split branch: one placeholder word."""
+        return cls(
+            torch.full((1,), PLACEHOLDER, dtype=dtype,
+                       device=resolve_device(device)),
+            (placeholder_label(branch),),
+        )
+
+    # ------------------------------------------------------------------ #
+    # properties
+    # ------------------------------------------------------------------ #
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def n_words(self) -> int:
+        return int(sum(l.size for l in self.schema))
+
+    @property
+    def n_signals(self) -> int:
+        """Number of non-placeholder labels (paper counts 'profiled signals').
+
+        Guard words (``integrity`` labels) are framing, not signals.
+        """
+        return sum(1 for l in self.schema
+                   if l.metric not in _NON_SIGNAL_METRICS)
+
+    def __repr__(self):
+        return (
+            f"ProfileStream(words={self.n_words}, signals={self.n_signals}, "
+            f"dtype={self.data.dtype})"
+        )
+
+    # ------------------------------------------------------------------ #
+    # the three SPRING stream operations
+    # ------------------------------------------------------------------ #
+    def append(self, name: str, metric: str, values) -> "ProfileStream":
+        """Module appends its locally collected words to the stream's end.
+
+        ``values`` may be scalar or 1-D.  They are detached: profiling must
+        not perturb the function being profiled.
+        """
+        values = torch.atleast_1d(
+            torch.as_tensor(values, device=self.data.device)).reshape(-1)
+        values = values.detach().to(self.dtype)
+        label = Label(name=name, metric=metric, size=int(values.shape[0]))
+        return ProfileStream(torch.cat([self.data, values]),
+                             self.schema + (label,))
+
+    def append_guarded(self, name: str, metric: str, values, *,
+                       algo: str = "xor24") -> "ProfileStream":
+        """``append`` plus a [sequence, checksum...] guard word group.
+
+        The sequence number counts guarded records already in the stream, so
+        the host detects dropped/duplicated/reordered module records; the
+        checksum covers the payload words, so it detects in-band bit flips.
+        ``algo`` selects ``"xor24"`` (one fold word) or ``"crc32"`` (two
+        words); the guard label's size encodes the choice.
+        """
+        if algo not in GUARD_ALGOS:
+            raise ValueError(f"algo must be one of {GUARD_ALGOS}, got {algo!r}")
+        out = self.append(name, metric, values)
+        payload = out.data[self.n_words:]
+        seq = torch.full((1,), float(self._next_seq()), dtype=self.dtype,
+                         device=self.data.device)
+        if algo == "crc32":
+            check = word_crc32(payload).to(self.dtype)
+        else:
+            check = word_checksum(payload).to(self.dtype)[None]
+        guard = Label(name=f"{name}/__guard__", metric=INTEGRITY_METRIC,
+                      size=1 + int(check.shape[0]))
+        return ProfileStream(torch.cat([out.data, seq, check]),
+                             out.schema + (guard,))
+
+    def _next_seq(self) -> int:
+        return sum(1 for l in self.schema if l.metric == INTEGRITY_METRIC)
+
+    def with_bitflip(self, word_index: int, bitmask: int = 1 << 17
+                     ) -> "ProfileStream":
+        """Fault injection: XOR ``bitmask`` into one word's bit pattern."""
+        bits = self.data.to(torch.float32).contiguous().view(torch.int32).clone()
+        mask = bitmask & 0xFFFFFFFF
+        mask = mask - (1 << 32) if mask >= (1 << 31) else mask  # as int32
+        bits[word_index] = bits[word_index] ^ mask
+        return ProfileStream(bits.view(torch.float32).to(self.dtype),
+                             self.schema)
+
+    def truncated(self, n_words: int) -> "ProfileStream":
+        """Fault injection: keep only the first ``n_words`` data words (a
+        DMA transfer cut short); the schema still promises the full layout."""
+        return ProfileStream(self.data[:n_words], self.schema)
+
+    def split(self, n: int) -> Tuple["ProfileStream", ...]:
+        """Stream split in synchrony with a data-stream split (clone).
+
+        Branch 0 carries all existing profile words; branches 1..n-1 are
+        initialized with a placeholder word each (paper §II.A).
+        """
+        if n < 1:
+            raise ValueError("split requires n >= 1")
+        out = [self]
+        for b in range(1, n):
+            out.append(ProfileStream.placeholder(
+                dtype=self.dtype, branch=b, device=self.data.device))
+        return tuple(out)
+
+    @staticmethod
+    def merge(*streams: "ProfileStream") -> "ProfileStream":
+        """Stream merge in synchrony with a data merge: input 0 first, then 1…"""
+        if not streams:
+            raise ValueError("merge requires at least one stream")
+        dtype = streams[0].dtype
+        data = torch.cat([s.data.to(dtype) for s in streams])
+        schema: Tuple[Label, ...] = ()
+        for s in streams:
+            schema = schema + s.schema
+        return ProfileStream(data, schema)
+
+    # ------------------------------------------------------------------ #
+    # host-side (PS-side) decode
+    # ------------------------------------------------------------------ #
+    def label_list(self) -> Tuple[Label, ...]:
+        """The predetermined output profiling label list."""
+        return self.schema
+
+    def _host_words(self) -> np.ndarray:
+        return self.data.detach().to("cpu", torch.float64).numpy()
+
+    def decode(self) -> Dict[str, np.ndarray]:
+        """Positional decode of the flat word stream into {label: values}.
+
+        Runs host-side (the PS-side interpretation step).  Placeholder words
+        are dropped, like the paper's post-processing.
+        """
+        arr = self._host_words()
+        out: Dict[str, np.ndarray] = {}
+        cursor = 0
+        for label in self.schema:
+            words = arr[cursor : cursor + label.size]
+            cursor += label.size
+            if label.metric == "placeholder":
+                continue
+            if label.name in out:  # same site profiled twice (e.g. two steps)
+                out[label.name] = np.concatenate([out[label.name], words])
+            else:
+                out[label.name] = words
+        if cursor != arr.shape[0]:
+            raise ValueError(
+                f"schema covers {cursor} words but stream has {arr.shape[0]}"
+            )
+        return out
+
+    def decode_verified(self) -> Tuple[Dict[str, np.ndarray], "IntegrityReport"]:
+        """Fault-tolerant positional decode with per-record verification.
+
+        Unlike ``decode`` this never raises on a damaged stream: corrupted
+        records (checksum mismatch) are quarantined, records lost to a
+        truncated transfer are reported missing, sequence-number gaps are
+        flagged, and every intact signal is returned as usual.
+        """
+        arr = self._host_words()
+        n = arr.shape[0]
+        out: Dict[str, np.ndarray] = {}
+        status: Dict[str, str] = {}
+        quarantined: List[str] = []
+        missing: List[str] = []
+        seq_errors: List[str] = []
+        seen_seq: List[int] = []
+        cursor = 0
+        pending: Optional[Tuple[str, np.ndarray]] = None  # awaiting guard
+
+        def commit(name: str, words: np.ndarray, ok: bool):
+            if ok:
+                if name in out:
+                    out[name] = np.concatenate([out[name], words])
+                else:
+                    out[name] = words
+                status[name] = "ok" if status.get(name) != "corrupt" else "corrupt"
+            else:
+                quarantined.append(name)
+                status[name] = "corrupt"
+                out.pop(name, None)
+
+        def host(word: torch.Tensor) -> np.ndarray:
+            return word.to(self.dtype).to(torch.float64).numpy()
+
+        for label in self.schema:
+            lo, hi = cursor, cursor + label.size
+            cursor = hi
+            if hi > n:  # transfer cut short: the record never fully arrived
+                if label.metric not in _NON_SIGNAL_METRICS:
+                    missing.append(label.name)
+                    status[label.name] = "missing"
+                elif label.metric == INTEGRITY_METRIC and pending is not None:
+                    # payload arrived but its guard didn't: keep, unverified
+                    commit(*pending, ok=True)
+                    status[pending[0]] = "unverified"
+                    pending = None
+                continue
+            words = arr[lo:hi]
+            if label.metric == "placeholder":
+                continue
+            if label.metric == INTEGRITY_METRIC:
+                if pending is None:
+                    seq_errors.append(f"orphan guard {label.name}")
+                    continue
+                name, payload = pending
+                pending = None
+                if label.size >= 3:  # crc32 guard: [seq, lo16, hi16]
+                    expect = host(word_crc32(payload))
+                    ok = (float(words[1]) == float(expect[0])
+                          and float(words[2]) == float(expect[1]))
+                else:                # xor24 guard: [seq, fold]
+                    ok = float(words[1]) == float(host(word_checksum(payload)))
+                commit(name, payload, ok=ok)
+                seq = float(words[0])
+                if np.isfinite(seq) and 0 <= seq < 2**31:
+                    seen_seq.append(int(seq))
+                else:  # corrupted framing word — never crash the decoder
+                    seq_errors.append(f"unreadable sequence word for {name}")
+                continue
+            if pending is not None:  # previous payload had no guard
+                commit(*pending, ok=True)
+                status[pending[0]] = "unverified"
+                pending = None
+            pending = (label.name, words)
+        if pending is not None:  # trailing unguarded record
+            commit(*pending, ok=True)
+            status[pending[0]] = "unverified"
+        # guarded records must count up by 1; a restart at 0 is a legitimate
+        # split-branch boundary, anything else is a gap/dup/reorder
+        for a, b in zip(seen_seq, seen_seq[1:]):
+            if b != a + 1 and b != 0:
+                seq_errors.append(f"sequence break {a}->{b} in {seen_seq}")
+                break
+        report = IntegrityReport(
+            n_words_expected=self.n_words, n_words_received=n,
+            status=status, quarantined=sorted(set(quarantined)),
+            missing=missing, seq_errors=seq_errors,
+            truncated=(n < self.n_words), surplus=max(0, n - self.n_words))
+        return out, report
+
+
+@dataclasses.dataclass
+class IntegrityReport:
+    """Host-side verdict on one decoded profile stream."""
+
+    n_words_expected: int
+    n_words_received: int
+    status: Dict[str, str]          # signal -> ok | unverified | corrupt | missing
+    quarantined: List[str]
+    missing: List[str]
+    seq_errors: List[str]
+    truncated: bool
+    surplus: int
+
+    @property
+    def ok(self) -> bool:
+        return (not self.quarantined and not self.missing
+                and not self.seq_errors and not self.truncated
+                and self.surplus == 0)
+
+    @property
+    def n_corrupt(self) -> int:
+        return len(self.quarantined)
+
+    def summary(self) -> str:
+        if self.ok:
+            return (f"stream intact: {self.n_words_received} words, "
+                    f"{len(self.status)} signal(s) verified")
+        bits = [f"words {self.n_words_received}/{self.n_words_expected}"]
+        if self.quarantined:
+            bits.append(f"quarantined: {', '.join(self.quarantined)}")
+        if self.missing:
+            bits.append(f"missing: {', '.join(self.missing)}")
+        if self.seq_errors:
+            bits.append("; ".join(self.seq_errors))
+        if self.surplus:
+            bits.append(f"{self.surplus} surplus word(s)")
+        return "stream damaged: " + " | ".join(bits)
+
+    def __str__(self) -> str:
+        return self.summary()
+
+
+def validate_policy(policy: str) -> str:
+    if policy not in _VALID_POLICIES:
+        raise ValueError(f"policy must be one of {_VALID_POLICIES}, got {policy!r}")
+    return policy

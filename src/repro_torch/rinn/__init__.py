@@ -1,0 +1,46 @@
+"""RINN benchmarks on PyTorch: generation, functional execution, streaming
+simulation (the port of :mod:`repro.rinn`)."""
+from .graphgen import PATTERNS, RinnConfig, RinnGraph, generate_rinn
+from .layers import (
+    AddSpec, AvgPool2DSpec, CloneSpec, ConcatSpec, Conv2DSpec,
+    DenseSpec, DepthwiseConv2DSpec, FlattenSpec, InputSpec, LayerSpec,
+    MaxPool2DSpec, ReluSpec, ReshapeSpec, SigmoidSpec, beats_for_shape,
+)
+from .hls import BOARDS, PYNQ_Z2, TimingProfile, ZCU102
+from .build import (
+    forward, forward_batch, init_params, params_from_numpy, to_profiled_dag,
+)
+from .streamsim import (
+    BeatFault, CapacityFault, CompiledSim, FaultPlan, NodeStall, SimResult,
+    WordCorruption, compile_graph, critical_path_actors, critical_path_edges,
+    run_sim,
+)
+from .batchsim import (
+    FaultOps, MachineOps, ShapeBucket, compile_stats, machine_bucket,
+    reset_compile_stats, run_sim_batch, run_sim_many, run_sim_single,
+)
+from .cosim import (
+    BlockedActor, CosimReport, DeadlockError, DeadlockReport, FifoRow,
+    RemediationAttempt, compare, cosim_many, cosim_only, diagnose,
+    remediate_pair, run_with_remediation,
+)
+
+__all__ = [
+    "PATTERNS", "RinnConfig", "RinnGraph", "generate_rinn",
+    "AddSpec", "AvgPool2DSpec", "CloneSpec", "ConcatSpec", "Conv2DSpec",
+    "DenseSpec", "DepthwiseConv2DSpec", "MaxPool2DSpec",
+    "FlattenSpec", "InputSpec", "LayerSpec", "ReluSpec", "ReshapeSpec",
+    "SigmoidSpec", "beats_for_shape",
+    "BOARDS", "PYNQ_Z2", "TimingProfile", "ZCU102",
+    "forward", "forward_batch", "init_params", "params_from_numpy",
+    "to_profiled_dag",
+    "CompiledSim", "SimResult", "compile_graph", "run_sim",
+    "BeatFault", "CapacityFault", "FaultPlan", "NodeStall", "WordCorruption",
+    "critical_path_actors", "critical_path_edges",
+    "FaultOps", "MachineOps", "ShapeBucket", "compile_stats",
+    "machine_bucket", "reset_compile_stats", "run_sim_batch", "run_sim_many",
+    "run_sim_single",
+    "CosimReport", "FifoRow", "compare", "cosim_many", "cosim_only",
+    "BlockedActor", "DeadlockError", "DeadlockReport", "RemediationAttempt",
+    "diagnose", "remediate_pair", "run_with_remediation",
+]

@@ -1,0 +1,498 @@
+"""CoSim-vs-profiled comparison harness (paper §III.B, Table I).
+
+Runs the streaming simulator twice per design:
+
+  * unprofiled  — the "original version"; its true max occupancies are the
+    co-simulation reference column;
+  * profiled    — the SPRING in-band run: sampled-at-read occupancies, with
+    the profiling datapath interference enabled.
+
+Emits Table-I-shaped rows: (consumer layer type, cosim fullness, profiled
+fullness) per FIFO, plus aggregate discrepancy statistics (the paper reports
+average |cosim − profiled| = 0.997, max 6 on its RINN set).
+
+The port of :mod:`repro.rinn.cosim`.  Every entry point takes ``device``
+(the card by default).  The options that need the port's ``analysis/``
+slice (``static_check``, ``static_precheck``) or its ``trace/`` slice
+(``trace``) raise ``NotImplementedError`` until those slices land.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..device import resolve_device
+from .graphgen import RinnGraph
+from .hls import TimingProfile
+from .batchsim import run_sim_batch, run_sim_many
+from .streamsim import (
+    CompiledSim, FaultPlan, SimResult, compile_graph, run_sim,
+)
+
+Edge = Tuple[str, str]
+
+
+def _not_ported(option: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{option}=True needs the {slice_name}/ slice of repro_torch, which "
+        "is not ported yet")
+
+
+# --------------------------------------------------------------------- #
+# deadlock diagnosis
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class BlockedActor:
+    """One stuck actor and what it is waiting on at the no-progress point."""
+
+    node: str
+    layer_type: str
+    consumed: int
+    total_in: int
+    produced: int
+    total_out: int
+    empty_inputs: List[Edge]   # starved: waiting for data that never comes
+    full_outputs: List[Edge]   # backpressured: waiting for space
+
+    @property
+    def reason(self) -> str:
+        if self.full_outputs and not self.empty_inputs:
+            return "backpressure"
+        if self.empty_inputs and not self.full_outputs:
+            return "starvation"
+        if self.empty_inputs and self.full_outputs:
+            return "mixed"
+        return "rate-limited"
+
+
+@dataclasses.dataclass
+class DeadlockReport:
+    """Structured post-mortem of a stalled dataflow run.
+
+    ``blocked`` is the cycle of actors with unmet dependencies; ``full_edges``
+    are the FIFOs at capacity (the FIFOAdvisor-style remediation targets) and
+    ``empty_edges`` the starved inputs of blocked consumers.
+    """
+
+    cycle: int
+    idle_cycles: int
+    blocked: List[BlockedActor]
+    full_edges: List[Edge]
+    empty_edges: List[Edge]
+    capacities: Dict[Edge, int]
+    faults: Optional[FaultPlan] = None
+
+    @property
+    def blocked_edge_set(self) -> List[Edge]:
+        return sorted(set(self.full_edges) | set(self.empty_edges))
+
+    @property
+    def capacity_induced(self) -> bool:
+        """True when at least one FIFO is at capacity — growing it can help."""
+        return bool(self.full_edges)
+
+    def suggested_capacities(self, growth: int = 2) -> Dict[Edge, int]:
+        return {e: max(2, self.capacities[e] * growth) for e in self.full_edges}
+
+    def summary(self) -> str:
+        lines = [
+            f"deadlock at cycle {self.cycle} "
+            f"(no progress for {self.idle_cycles} cycles); "
+            f"{len(self.blocked)} blocked actor(s), "
+            f"{len(self.full_edges)} full / {len(self.empty_edges)} starved "
+            f"FIFO(s)"
+        ]
+        for a in self.blocked:
+            waits = ([f"full {'->'.join(e)}" for e in a.full_outputs]
+                     + [f"empty {'->'.join(e)}" for e in a.empty_inputs])
+            lines.append(
+                f"  {a.node:14s} [{a.layer_type}] {a.reason:12s} "
+                f"in {a.consumed}/{a.total_in} out {a.produced}/{a.total_out}"
+                + (f"  waits on: {', '.join(waits)}" if waits else ""))
+        if self.capacity_induced:
+            sug = self.suggested_capacities()
+            lines.append("  remediation: grow "
+                         + ", ".join(f"{'->'.join(e)}:{self.capacities[e]}"
+                                     f"->{c}" for e, c in sorted(sug.items())))
+        if self.faults is not None and self.faults.n_faults:
+            lines.append(f"  active fault plan: seed={self.faults.seed} "
+                         f"({self.faults.n_faults} fault(s))")
+        return "\n".join(lines)
+
+    def __str__(self) -> str:
+        return self.summary()
+
+
+class DeadlockError(RuntimeError):
+    """Raised when a simulation stalls; carries the structured report."""
+
+    def __init__(self, report: DeadlockReport):
+        super().__init__(report.summary())
+        self.report = report
+
+
+def diagnose(sim: CompiledSim, res: SimResult) -> DeadlockReport:
+    """Extract the blocked cycle of actors from a stalled run's final state."""
+    node_of = {nid: i for i, nid in enumerate(sim.node_ids)}
+    in_of: Dict[str, List[Edge]] = {n: [] for n in sim.node_ids}
+    out_of: Dict[str, List[Edge]] = {n: [] for n in sim.node_ids}
+    for (s, d) in sim.edge_list:
+        out_of[s].append((s, d))
+        in_of[d].append((s, d))
+
+    blocked: List[BlockedActor] = []
+    full_edges: List[Edge] = []
+    empty_edges: List[Edge] = []
+    for e in sim.edge_list:
+        if res.fifo_final[e] >= res.fifo_capacity[e]:
+            full_edges.append(e)
+    for nid in sim.node_ids:
+        i = node_of[nid]
+        tin, tout = int(sim.total_in[i]), int(sim.total_out[i])
+        cons, prod = res.node_consumed[nid], res.node_produced[nid]
+        if prod >= tout:
+            continue  # finished actor, not part of the blocked cycle
+        empties = ([e for e in in_of[nid] if res.fifo_final[e] == 0]
+                   if (cons < tin and not sim.is_source[i]) else [])
+        fulls = [e for e in out_of[nid]
+                 if res.fifo_final[e] >= res.fifo_capacity[e]]
+        blocked.append(BlockedActor(
+            node=nid, layer_type=sim.layer_type.get(nid, "input"),
+            consumed=cons, total_in=tin, produced=prod, total_out=tout,
+            empty_inputs=empties, full_outputs=fulls))
+        empty_edges.extend(empties)
+    return DeadlockReport(
+        cycle=res.cycles, idle_cycles=res.idle_cycles, blocked=blocked,
+        full_edges=sorted(set(full_edges)),
+        empty_edges=sorted(set(empty_edges)),
+        capacities=dict(res.fifo_capacity), faults=res.faults)
+
+
+# --------------------------------------------------------------------- #
+# FIFOAdvisor-style auto-remediation: grow the full FIFOs and re-run
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class RemediationAttempt:
+    attempt: int
+    overrides: Dict[Edge, int]
+    completed: bool
+    report: Optional[DeadlockReport]
+
+
+def _remediation_bounds(sim: CompiledSim, faults: Optional[FaultPlan]):
+    """Shared sizing-state for the remediation loops: worst-case capacity
+    bounds, fault-adjusted base capacities, and in-edge sibling groups."""
+    node_of = {nid: i for i, nid in enumerate(sim.node_ids)}
+    bound = {e: max(2, int(sim.total_out[node_of[e[0]]]))
+             for e in sim.edge_list}
+    base_cap = {e: sim.capacity for e in sim.edge_list}
+    for cf in (faults.capacities if faults else ()):
+        base_cap[cf.edge] = cf.capacity
+    in_of: Dict[str, List[Edge]] = {}
+    for e in sim.edge_list:
+        in_of.setdefault(e[1], []).append(e)
+    return bound, base_cap, in_of
+
+
+def _ladder_overrides(ever_full, bound, base_cap, growth: int,
+                      exponent: int) -> Dict[Edge, int]:
+    """Rung ``exponent`` of the geometric ladder: every edge ever seen full
+    grown to ``base * growth**exponent``, capped at its demand bound —
+    the producer's total beat count, which provably removes backpressure."""
+    return {e: min(bound[e], max(2, base_cap[e]) * growth ** exponent)
+            for e in ever_full}
+
+
+def run_with_remediation(
+    sim: CompiledSim, *, profiled: bool = False, max_cycles: int = 200_000,
+    faults: Optional[FaultPlan] = None, budget: int = 6, growth: int = 2,
+    speculative: bool = True,
+    initial_overrides: Optional[Dict[Edge, int]] = None,
+    static_precheck: bool = False,
+    device=None,
+) -> Tuple[SimResult, List[RemediationAttempt]]:
+    """Run; on a capacity-induced deadlock, grow the full FIFOs and retry.
+
+    Sizing loop: every edge ever observed at capacity is grown geometrically
+    per attempt (``base * growth**attempt``), capped at its worst-case demand
+    bound.  Stops early when the deadlock is not capacity-induced
+    (starvation from a dropped beat cannot be sized away) or the budget is
+    spent.  Returns the last result plus the attempt log; never raises.
+
+    ``initial_overrides`` seeds the capacity map before the first run — the
+    hook for trace-derived sizing: when the
+    seed already clears the deadlock, the attempt log stays empty and the
+    geometric ladder is never invoked.  Seeded capacities become the new
+    base the ladder grows from if they turn out to be insufficient.
+
+    ``static_precheck=True`` (the reference's model-checker pre-sizing)
+    needs the ``analysis/`` slice and raises ``NotImplementedError``.
+
+    ``speculative=True`` (default) runs the *whole remaining capacity
+    ladder* as one batch per diagnosis instead of one serial run per rung,
+    then walks the rungs in order, re-speculating only when a new deadlock
+    discovers FIFOs the frozen ladder did not grow.  Chosen capacities,
+    results, and the attempt log are identical to the serial loop
+    (``speculative=False``); only the launch count changes.
+    """
+    if static_precheck:
+        raise _not_ported("static_precheck", "analysis")
+    dev = resolve_device(device)
+    bound, base_cap, in_of = _remediation_bounds(sim, faults)
+    seed = dict(initial_overrides or {})
+    base_cap.update(seed)
+
+    ever_full: set = set()
+    attempts: List[RemediationAttempt] = []
+    res = run_sim(sim, profiled=profiled, max_cycles=max_cycles,
+                  faults=faults, capacity_overrides=seed or None, device=dev)
+    # speculative ladder state: rung results precomputed for a frozen
+    # ever_full set; invalidated whenever the set grows
+    spec_frozen: Optional[set] = None
+    spec_rungs: Dict[int, Tuple[Dict[Edge, int], SimResult]] = {}
+    for k in range(budget):
+        if res.completed:
+            break
+        report = diagnose(sim, res)
+        if not report.capacity_induced:
+            attempts.append(RemediationAttempt(
+                attempt=k, overrides={}, completed=False, report=report))
+            break
+        # a full merge input means the consumer's whole in-edge group shares
+        # the skew — grow siblings together instead of rediscovering them
+        # one deadlock at a time
+        for e in report.full_edges:
+            ever_full |= set(in_of[e[1]])
+        if speculative:
+            if spec_frozen != ever_full:
+                spec_frozen = set(ever_full)
+                exps = list(range(k + 1, budget + 1))
+                over_list = [
+                    {**seed, **_ladder_overrides(spec_frozen, bound,
+                                                 base_cap, growth, x)}
+                    for x in exps]
+                rung_res = run_sim_batch(
+                    sim, plans=[faults] * len(exps),
+                    capacity_overrides=over_list, profiled=profiled,
+                    max_cycles=max_cycles, device=dev)
+                spec_rungs = dict(zip(exps, zip(over_list, rung_res)))
+            overrides, res = spec_rungs[k + 1]
+        else:
+            overrides = {**seed, **_ladder_overrides(ever_full, bound,
+                                                     base_cap, growth, k + 1)}
+            res = run_sim(sim, profiled=profiled, max_cycles=max_cycles,
+                          faults=faults, capacity_overrides=overrides,
+                          device=dev)
+        attempts.append(RemediationAttempt(
+            attempt=k, overrides=overrides, completed=res.completed,
+            report=None if res.completed else diagnose(sim, res)))
+    return res, attempts
+
+
+def remediate_pair(
+    sim: CompiledSim, *, max_cycles: int = 200_000,
+    faults: Optional[FaultPlan] = None, budget: int = 6, growth: int = 2,
+    initial_overrides: Optional[Dict[Edge, int]] = None,
+    device=None,
+) -> Tuple[SimResult, SimResult, List[RemediationAttempt],
+           Dict[Edge, int]]:
+    """Joint remediation of the unprofiled+profiled cosim pair.
+
+    Both lanes run as one batch per rung and share a single capacity map,
+    so Table-I rows always compare the *same* hardware config (remediating
+    each run independently can converge to different FIFO sizes).
+    ``initial_overrides`` seeds the shared map (see
+    :func:`run_with_remediation`).  Returns ``(ref, prof, attempts,
+    capacities)``.
+    """
+    dev = resolve_device(device)
+    bound, base_cap, in_of = _remediation_bounds(sim, faults)
+    seed = dict(initial_overrides or {})
+    base_cap.update(seed)
+
+    def pair(overrides):
+        ref, prof = run_sim_batch(
+            sim, plans=[faults, faults], profiled=[False, True],
+            capacity_overrides=[overrides, overrides],
+            max_cycles=max_cycles, device=dev)
+        return ref, prof
+
+    ever_full: set = set()
+    attempts: List[RemediationAttempt] = []
+    overrides: Dict[Edge, int] = dict(seed)
+    ref, prof = pair(overrides)
+    for k in range(budget):
+        if ref.completed and prof.completed:
+            break
+        reports = [diagnose(sim, r) for r in (ref, prof) if not r.completed]
+        if not any(rep.capacity_induced for rep in reports):
+            attempts.append(RemediationAttempt(
+                attempt=k, overrides=dict(overrides), completed=False,
+                report=reports[0]))
+            break
+        for rep in reports:
+            for e in rep.full_edges:
+                ever_full |= set(in_of[e[1]])
+        overrides = {**seed, **_ladder_overrides(ever_full, bound, base_cap,
+                                                 growth, k + 1)}
+        ref, prof = pair(overrides)
+        done = ref.completed and prof.completed
+        attempts.append(RemediationAttempt(
+            attempt=k, overrides=overrides, completed=done,
+            report=None if done else diagnose(
+                sim, ref if not ref.completed else prof)))
+    return ref, prof, attempts, overrides
+
+
+@dataclasses.dataclass
+class FifoRow:
+    edge: Tuple[str, str]
+    consumer_type: str
+    cosim: int
+    profiled: int
+
+    @property
+    def diff(self) -> int:
+        return abs(self.cosim - self.profiled)
+
+
+@dataclasses.dataclass
+class CosimReport:
+    rows: List[FifoRow]
+    cycles_unprofiled: int
+    cycles_profiled: int
+    completed: bool
+    remediation: List[RemediationAttempt] = dataclasses.field(
+        default_factory=list)
+    # the single capacity map both runs executed under (auto_remediate only)
+    remediated_capacities: Dict[Edge, int] = dataclasses.field(
+        default_factory=dict)
+
+    @property
+    def n_signals(self) -> int:
+        return len(self.rows)
+
+    @property
+    def mean_abs_diff(self) -> float:
+        return float(np.mean([r.diff for r in self.rows])) if self.rows else 0.0
+
+    @property
+    def max_abs_diff(self) -> int:
+        return max((r.diff for r in self.rows), default=0)
+
+    @property
+    def max_depth(self) -> int:
+        return max((r.cosim for r in self.rows), default=0)
+
+    @property
+    def min_depth(self) -> int:
+        return min((r.cosim for r in self.rows), default=0)
+
+    def by_layer_type(self) -> Dict[str, List[FifoRow]]:
+        out: Dict[str, List[FifoRow]] = {}
+        for r in self.rows:
+            out.setdefault(r.consumer_type, []).append(r)
+        return out
+
+    def table(self) -> str:
+        lines = [f"{'consumer':10s} {'edge':34s} {'cosim':>6s} {'prof':>6s} {'diff':>5s}"]
+        for r in sorted(self.rows, key=lambda r: (r.consumer_type, r.edge)):
+            lines.append(
+                f"{r.consumer_type:10s} {'->'.join(r.edge):34s} "
+                f"{r.cosim:6d} {r.profiled:6d} {r.diff:5d}")
+        lines.append(
+            f"-- signals={self.n_signals} mean|diff|={self.mean_abs_diff:.3f} "
+            f"max|diff|={self.max_abs_diff} depth∈[{self.min_depth},{self.max_depth}]")
+        return "\n".join(lines)
+
+
+def compare(graph: RinnGraph, timing: TimingProfile,
+            max_cycles: int = 200_000, *,
+            faults: Optional[FaultPlan] = None,
+            auto_remediate: bool = False,
+            remediation_budget: int = 6,
+            trace: bool = False,
+            trace_windows: int = 256,
+            static_check: bool = False,
+            device=None) -> CosimReport:
+    """Run the unprofiled/profiled pair and emit the Table-I report.
+
+    The pair runs as one batch of two lanes on ``device``.  ``trace=True``
+    (occupancy timelines) and ``static_check=True`` (lint and model
+    checker) need the ``trace/`` and ``analysis/`` slices and raise
+    ``NotImplementedError``; ``trace_windows`` belongs to ``trace``.
+    """
+    if trace:
+        raise _not_ported("trace", "trace")
+    if static_check:
+        raise _not_ported("static_check", "analysis")
+    dev = resolve_device(device)
+    sim = compile_graph(graph, timing)
+    attempts: List[RemediationAttempt] = []
+    capacities: Dict[Edge, int] = {}
+    if auto_remediate:
+        # joint remediation: one capacity map, both lanes batched per rung —
+        # Table-I rows always compare the same hardware config
+        ref, prof, attempts, capacities = remediate_pair(
+            sim, max_cycles=max_cycles, faults=faults,
+            budget=remediation_budget, device=dev)
+    else:
+        ref, prof = run_sim_batch(
+            sim, plans=[faults, faults], profiled=[False, True],
+            max_cycles=max_cycles, device=dev)
+    for res in (ref, prof):
+        if not res.completed:
+            raise DeadlockError(diagnose(sim, res))
+    rows = [
+        FifoRow(edge=e, consumer_type=prof.consumer_type[e],
+                cosim=ref.fifo_max[e], profiled=prof.fifo_profiled[e])
+        for e in sorted(prof.fifo_profiled)
+    ]
+    return CosimReport(
+        rows=rows, cycles_unprofiled=ref.cycles,
+        cycles_profiled=prof.cycles, completed=True, remediation=attempts,
+        remediated_capacities=capacities,
+    )
+
+
+def cosim_only(graph: RinnGraph, timing: TimingProfile,
+               max_cycles: int = 200_000, *,
+               faults: Optional[FaultPlan] = None,
+               auto_remediate: bool = False,
+               remediation_budget: int = 6,
+               device=None) -> SimResult:
+    dev = resolve_device(device)
+    sim = compile_graph(graph, timing)
+    if auto_remediate:
+        res, _ = run_with_remediation(
+            sim, profiled=False, max_cycles=max_cycles, faults=faults,
+            budget=remediation_budget, device=dev)
+    else:
+        res = run_sim(sim, profiled=False, max_cycles=max_cycles,
+                      faults=faults, device=dev)
+    if not res.completed:
+        raise DeadlockError(diagnose(sim, res))
+    return res
+
+
+def cosim_many(
+    graphs: List[RinnGraph], timing: TimingProfile, *,
+    max_cycles: int = 200_000,
+    faults: Optional[List[Optional[FaultPlan]]] = None,
+    profiled: bool = False,
+    device=None,
+) -> List[Tuple[SimResult, Optional[DeadlockReport]]]:
+    """Batched sweep over many designs: graphs that pad into the same shape
+    bucket run as one batch (see ``run_sim_many``).
+
+    Never raises on deadlock — each entry is ``(result, report)`` with
+    ``report`` a :class:`DeadlockReport` when that design stalled and
+    ``None`` otherwise, so one bad configuration cannot kill a sweep.
+    """
+    sims = [compile_graph(g, timing) for g in graphs]
+    results = run_sim_many(sims, plans=faults, profiled=profiled,
+                           max_cycles=max_cycles, device=device)
+    return [(res, None if res.completed else diagnose(sim, res))
+            for sim, res in zip(sims, results)]

@@ -1,0 +1,326 @@
+"""Cycle-level streaming dataflow simulator — the "FPGA" of this reproduction.
+
+The paper measures FIFO fullness of hls4ml streaming accelerators on real
+boards and in Vitis co-simulation.  This module replaces the board with a
+synchronous dataflow machine, stepped one cycle at a time on tensors by
+:mod:`.batchsim` (the port of :mod:`repro.rinn.streamsim`; the compiled
+machine and the fault plans are numpy and plain Python, identical to the
+reference's):
+
+  * every edge is a FIFO with an occupancy counter and a capacity;
+  * every node is a streaming actor: it consumes one beat from *each* input
+    FIFO when all are non-empty and its initiation-interval timer expired,
+    and produces one beat into *all* output FIFOs when its produced count is
+    behind what its pipeline allows and all output FIFOs have space;
+  * conv nodes have a line-buffer fill (``(k−1)·W + k`` beats) before their
+    first output; burst nodes (dense / flatten / reshape) emit only after
+    consuming their whole input; sources emit one beat every ``source_ii``
+    cycles.
+
+Two FIFO measurements come out of a run, mirroring the paper:
+
+  * **cosim fullness**  — true max occupancy over all cycles (what Vitis
+    co-simulation reports);
+  * **profiled fullness** — occupancy sampled *at consumer read moments*
+    (Listing 1 samples ``data.size()`` immediately before ``data.read()``),
+    collected only for edges whose consumer is a profiled node.
+
+When ``profiled=True`` the profiler also *interferes* with the datapath the
+way Listing 2's extra FSM state does: every ``pf_period``-th firing of a
+profiled node stalls ``pf_stall`` extra cycle(s) (the profile-stream write
+shares a state with the data write).  This mechanistically reproduces the
+paper's Table-I discrepancies between cosim and profiled numbers.
+"""
+from __future__ import annotations
+
+import dataclasses
+import random
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .graphgen import RinnGraph
+from .hls import TimingProfile
+from .layers import AddSpec, DenseSpec, InputSpec, beats_for_shape
+
+
+@dataclasses.dataclass
+class CompiledSim:
+    """Static arrays describing the dataflow machine (numpy, host side)."""
+
+    node_ids: List[str]
+    edge_list: List[Tuple[str, str]]
+    in_edges: np.ndarray    # [N, MAX_IN] edge index or E (dummy)
+    out_edges: np.ndarray   # [N, MAX_OUT] edge index or E (dummy)
+    total_in: np.ndarray    # [N] consume firings
+    total_out: np.ndarray   # [N] produce firings
+    fill: np.ndarray        # [N] effective fill (burst => total_in)
+    ii: np.ndarray          # [N] consume initiation interval (cycles)
+    extra_lat: np.ndarray   # [N] extra drain latency (board output register)
+    is_source: np.ndarray   # [N] bool
+    profiled: np.ndarray    # [N] bool — consumer-side SPRING tap
+    capacity: int
+    source_ii: int
+    pf_period: int
+    pf_stall: int
+    layer_type: Dict[str, str]  # node id -> short type name
+
+
+def compile_graph(graph: RinnGraph, timing: TimingProfile) -> CompiledSim:
+    shapes = graph.shapes()
+    order = graph.topo_order()
+    idx = {nid: i for i, nid in enumerate(order)}
+    edge_list = list(graph.edges)
+    eidx = {e: i for i, e in enumerate(edge_list)}
+    N, E = len(order), len(edge_list)
+
+    max_in = max(1, max(len(graph.predecessors(n)) for n in order))
+    max_out = max(1, max(len(graph.successors(n)) for n in order))
+    in_edges = np.full((N, max_in), E, np.int32)   # E = dummy slot
+    out_edges = np.full((N, max_out), E, np.int32)
+    total_in = np.zeros(N, np.int32)
+    total_out = np.zeros(N, np.int32)
+    fill = np.zeros(N, np.int32)
+    ii = np.ones(N, np.int32)
+    extra = np.zeros(N, np.int32)
+    is_src = np.zeros(N, bool)
+    prof = np.zeros(N, bool)
+    ltype: Dict[str, str] = {}
+
+    for nid in order:
+        i = idx[nid]
+        spec = graph.nodes[nid]
+        preds = graph.predecessors(nid)
+        succs = graph.successors(nid)
+        for k, p in enumerate(preds):
+            in_edges[i, k] = eidx[(p, nid)]
+        for k, d in enumerate(succs):
+            out_edges[i, k] = eidx[(nid, d)]
+        in_shapes = [shapes[p] for p in preds]
+        out_beats = beats_for_shape(shapes[nid])
+        in_beats = beats_for_shape(in_shapes[0]) if in_shapes else 0
+        total_in[i] = in_beats
+        total_out[i] = out_beats
+        is_src[i] = isinstance(spec, InputSpec)
+        prof[i] = spec.profiled and bool(preds)
+        ltype[nid] = type(spec).__name__.replace("Spec", "").lower()
+        if is_src[i]:
+            continue
+        ii[i] = spec.ii_cycles(in_shapes, timing)
+        # §III.C.8 emulation hook: very wide datapaths can change the schedule
+        if (timing.bitwidth_ii_bump_threshold
+                and timing.bitwidth >= timing.bitwidth_ii_bump_threshold
+                and isinstance(spec, AddSpec)):
+            ii[i] += 1
+        if spec.burst():
+            fill[i] = in_beats
+            if timing.output_register and isinstance(spec, DenseSpec):
+                extra[i] = 1  # Pynq-Z2 registers the dense output (§III.C.2)
+        else:
+            fill[i] = min(spec.fill_beats(in_shapes, timing), in_beats)
+
+    return CompiledSim(
+        node_ids=order, edge_list=edge_list,
+        in_edges=in_edges, out_edges=out_edges,
+        total_in=total_in, total_out=total_out, fill=fill, ii=ii,
+        extra_lat=extra, is_source=is_src, profiled=prof,
+        capacity=timing.fifo_capacity, source_ii=timing.source_ii,
+        pf_period=timing.pf_period, pf_stall=timing.pf_stall,
+        layer_type=ltype,
+    )
+
+
+# --------------------------------------------------------------------- #
+# fault injection
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class NodeStall:
+    """Transient actor stall: ``node`` can neither consume nor produce for
+    cycles in ``[start, start + duration)`` — a hung AXI handshake."""
+
+    node: str
+    start: int
+    duration: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BeatFault:
+    """Drop or duplicate the ``beat``-th beat pushed onto ``edge``.
+
+    A drop starves the consumer (the producer believes it fired); a dup
+    leaves a surplus beat in the FIFO.  Both are wire-level faults the
+    producer's own bookkeeping cannot see.
+    """
+
+    edge: Tuple[str, str]
+    beat: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityFault:
+    """Override one edge's FIFO capacity (a mis-sized FIFO in the build)."""
+
+    edge: Tuple[str, str]
+    capacity: int
+
+
+@dataclasses.dataclass(frozen=True)
+class WordCorruption:
+    """XOR ``bitmask`` into the stored profile word of ``edge`` at ``cycle``
+    — an in-fabric bit flip of the profile-stream payload."""
+
+    edge: Tuple[str, str]
+    cycle: int
+    bitmask: int = 1 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """A seeded, deterministic set of faults injected into one run.
+
+    Two runs with the same plan (or plans from the same seed) are
+    bit-identical.  ``generate`` draws from Python's ``random.Random`` in the
+    reference's order, so both packages draw equal plans from one seed.
+    """
+
+    seed: int = 0
+    stalls: Tuple[NodeStall, ...] = ()
+    drops: Tuple[BeatFault, ...] = ()
+    dups: Tuple[BeatFault, ...] = ()
+    capacities: Tuple[CapacityFault, ...] = ()
+    corruptions: Tuple[WordCorruption, ...] = ()
+
+    @property
+    def n_faults(self) -> int:
+        return (len(self.stalls) + len(self.drops) + len(self.dups)
+                + len(self.capacities) + len(self.corruptions))
+
+    def max_stall(self) -> int:
+        return max((s.duration for s in self.stalls), default=0)
+
+    @classmethod
+    def generate(
+        cls,
+        sim: "CompiledSim",
+        seed: int,
+        *,
+        n_stalls: int = 1,
+        n_drops: int = 0,
+        n_dups: int = 0,
+        n_corruptions: int = 1,
+        stall_span: Tuple[int, int] = (5, 40),
+        horizon: int = 2000,
+        bias: str = "uniform",
+    ) -> "FaultPlan":
+        """Draw a deterministic plan against a compiled machine.
+
+        ``bias="uniform"`` (default) draws targets uniformly, exactly as
+        before.  ``bias="critical_path"`` concentrates stalls on the
+        highest total-beat actors and profile-word corruptions on the
+        busiest profiled edges — the places where a real fault hurts the
+        paper's measurements most.
+        """
+        if bias not in ("uniform", "critical_path"):
+            raise ValueError(f"unknown bias {bias!r}; "
+                             "use 'uniform' or 'critical_path'")
+        rnd = random.Random(seed)
+        actors = [n for n, src in zip(sim.node_ids, sim.is_source) if not src]
+        cons = _consumer_index(sim)
+        prof_edges = [e for e, ci in zip(sim.edge_list, cons)
+                      if sim.profiled[ci]] or list(sim.edge_list)
+        if bias == "critical_path":
+            actors = critical_path_actors(sim)
+            prof_edges = critical_path_edges(sim, prof_edges)
+        stalls = tuple(
+            NodeStall(node=rnd.choice(actors),
+                      start=rnd.randrange(1, horizon),
+                      duration=rnd.randint(*stall_span))
+            for _ in range(n_stalls))
+        drops = tuple(
+            BeatFault(edge=rnd.choice(sim.edge_list),
+                      beat=rnd.randrange(0, 8))
+            for _ in range(n_drops))
+        dups = tuple(
+            BeatFault(edge=rnd.choice(sim.edge_list),
+                      beat=rnd.randrange(0, 8))
+            for _ in range(n_dups))
+        corruptions = tuple(
+            WordCorruption(edge=rnd.choice(prof_edges),
+                           cycle=rnd.randrange(1, horizon))
+            for _ in range(n_corruptions))
+        return cls(seed=seed, stalls=stalls, drops=drops, dups=dups,
+                   corruptions=corruptions)
+
+
+def _consumer_index(sim: "CompiledSim") -> List[int]:
+    node_of = {nid: i for i, nid in enumerate(sim.node_ids)}
+    return [node_of[d] for (_, d) in sim.edge_list]
+
+
+def critical_path_actors(sim: "CompiledSim",
+                         fraction: float = 0.25) -> List[str]:
+    """Non-source actors in the top ``fraction`` by total beat traffic
+    (consumed + produced) — the machine's critical path, where a stall
+    costs the most schedule slack."""
+    ranked = sorted(
+        (n for n, src in zip(sim.node_ids, sim.is_source) if not src),
+        key=lambda n: -int(sim.total_in[sim.node_ids.index(n)]
+                           + sim.total_out[sim.node_ids.index(n)]))
+    keep = max(1, int(len(ranked) * fraction))
+    return ranked[:keep]
+
+
+def critical_path_edges(sim: "CompiledSim", edges: List[Tuple[str, str]],
+                        fraction: float = 0.25) -> List[Tuple[str, str]]:
+    """The busiest ``fraction`` of ``edges`` by endpoint beat traffic."""
+    node_of = {nid: i for i, nid in enumerate(sim.node_ids)}
+
+    def weight(e):
+        s, d = node_of[e[0]], node_of[e[1]]
+        return int(sim.total_out[s]) + int(sim.total_in[d])
+
+    ranked = sorted(edges, key=lambda e: -weight(e))
+    keep = max(1, int(len(ranked) * fraction))
+    return ranked[:keep]
+
+
+@dataclasses.dataclass
+class SimResult:
+    completed: bool
+    cycles: int
+    fifo_max: Dict[Tuple[str, str], int]       # true max occupancy (cosim)
+    fifo_profiled: Dict[Tuple[str, str], int]  # sampled-at-read max
+    consumer_type: Dict[Tuple[str, str], str]
+    # final-state diagnostics (fault/deadlock analysis — see rinn.cosim)
+    deadlocked: bool = False
+    idle_cycles: int = 0
+    fifo_final: Dict[Tuple[str, str], int] = dataclasses.field(
+        default_factory=dict)
+    fifo_capacity: Dict[Tuple[str, str], int] = dataclasses.field(
+        default_factory=dict)
+    node_consumed: Dict[str, int] = dataclasses.field(default_factory=dict)
+    node_produced: Dict[str, int] = dataclasses.field(default_factory=dict)
+    faults: Optional[FaultPlan] = None
+
+
+def run_sim(
+    sim: CompiledSim, profiled: bool = False, max_cycles: int = 200_000,
+    faults: Optional[FaultPlan] = None,
+    capacity_overrides: Optional[Dict[Tuple[str, str], int]] = None,
+    *, device=None,
+) -> SimResult:
+    """Execute the dataflow machine on ``device`` (the card by default).
+
+    ``faults`` injects the plan's stalls / beat faults / capacity faults /
+    profile-word bit flips; ``capacity_overrides`` grows or shrinks specific
+    edges' FIFOs (the remediation hook — it wins over the plan's capacity
+    faults).  A no-progress detector stops the loop once no actor has fired
+    for longer than any legitimate quiet period, so deadlocks terminate in
+    O(deadlock cycle) rather than O(max_cycles).
+    """
+    from .batchsim import run_sim_single  # deferred: batchsim imports us
+
+    return run_sim_single(sim, profiled=profiled, max_cycles=max_cycles,
+                          faults=faults,
+                          capacity_overrides=capacity_overrides,
+                          device=device)
