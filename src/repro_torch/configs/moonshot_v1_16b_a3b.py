@@ -1,0 +1,23 @@
+"""moonshot-v1-16b-a3b [moe] (hf:moonshotai/Moonlight-16B-A3B).
+
+64 routed experts, top-6, plus 2 always-on shared experts (DeepSeekMoE-style
+fine-grained experts, d_ff=1408 per expert).  Expert buffers are the direct
+SPRING FIFO-fullness analogue — profiled in-band every step.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="moonshot-v1-16b-a3b",
+    family="moe",
+    n_layers=48,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_head=128,
+    d_ff=1408,
+    vocab_size=163840,
+    n_experts=64,
+    top_k=6,
+    n_shared_experts=2,
+    activation="silu",
+)

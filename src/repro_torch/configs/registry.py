@@ -1,0 +1,45 @@
+"""Registry of assigned architectures (``--arch <id>``); port of
+:mod:`repro.configs.registry`."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from .base import ModelConfig
+
+ARCH_IDS = [
+    "chameleon-34b",
+    "chatglm3-6b",
+    "granite-34b",
+    "mistral-large-123b",
+    "qwen2.5-14b",
+    "moonshot-v1-16b-a3b",
+    "qwen3-moe-235b-a22b",
+    "mamba2-780m",
+    "zamba2-1.2b",
+    "whisper-base",
+]
+
+_MODULES = {
+    "chameleon-34b": "chameleon_34b",
+    "chatglm3-6b": "chatglm3_6b",
+    "granite-34b": "granite_34b",
+    "mistral-large-123b": "mistral_large_123b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "mamba2-780m": "mamba2_780m",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "whisper-base": "whisper_base",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
+    mod = importlib.import_module(f"{__package__}.{_MODULES[arch]}")
+    return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -1,0 +1,37 @@
+"""Feed-forward blocks: gated (SwiGLU-family) MLP used by all dense archs
+(port of :mod:`repro.models.mlp`)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .common import ACTIVATIONS
+from .params import ParamSpec
+
+
+def mlp_specs(d_model: int, d_ff: int, dtype, stacked: int = 0,
+              gated: bool = True) -> Dict[str, ParamSpec]:
+    """(Gated) MLP weights; ``stacked`` > 0 prepends a layer dimension."""
+    def spec(shape, axes):
+        if stacked:
+            return ParamSpec((stacked,) + shape, dtype, ("layers",) + axes)
+        return ParamSpec(shape, dtype, axes)
+
+    out = {
+        "wi": spec((d_model, d_ff), ("embed", "mlp")),
+        "wo": spec((d_ff, d_model), ("mlp", "embed")),
+    }
+    if gated:
+        out["wg"] = spec((d_model, d_ff), ("embed", "mlp"))
+    return out
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              activation: str) -> torch.Tensor:
+    act = ACTIVATIONS[activation]
+    if "wg" in p:                      # gated (SwiGLU / GeGLU)
+        h = act(x @ p["wg"]) * (x @ p["wi"])
+    else:                              # plain 2-matrix MLP (GPT-BigCode)
+        h = act(x @ p["wi"])
+    return h @ p["wo"]

@@ -265,6 +265,8 @@ def test_import_leaves_jax_and_repro_out():
         "import sys\n"
         "import repro_torch, repro_torch.rinn, repro_torch.core\n"
         "import repro_torch.kernels, repro_torch.kernels.ops\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.launch.serve, repro_torch.distributed\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
